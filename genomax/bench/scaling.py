@@ -1,12 +1,7 @@
-"""Multi-chip scaling benchmark: pairs/s and parallel efficiency at
+"""Multi-device scaling benchmark: pairs/s and parallel efficiency at
 1..N devices (BASELINE.json: "pairs/s scaling efficiency at 1 chip,
-1 host, and N>=2 hosts").
-
-On a machine with one real TPU chip this runs on the virtual CPU mesh
-(``--xla_force_host_platform_device_count``), which exercises the full
-shard_map + all_gather path and measures its overheads; the same code
-scales a real pod slice unchanged (the mesh simply spans real chips,
-and ``initialize_distributed`` extends it across hosts).
+1 host, and N>=2 hosts"), over the platform's own devices
+(``initialize_distributed`` extends the mesh across hosts).
 """
 
 from __future__ import annotations
@@ -48,31 +43,16 @@ def run_scaling(device_counts, num_alignments: int, length: int,
         SWPair(sx=random_dna(rng, length) + b"\n", sy=random_dna(rng, length) + b"\n")
         for _ in range(num_alignments)
     ]
-    # One platform for the whole sweep: real chips if they cover the
-    # largest point, else the virtual CPU mesh for every point (mixing
-    # platforms would make the efficiency column meaningless).
     import jax
 
     devices = jax.devices()
-    platform = devices[0].platform
-    if len(devices) < max(device_counts):
-        devices = jax.devices("cpu")
-        platform = "cpu"
-        if backend == "auto":
-            backend = "lax"
     if len(devices) < max(device_counts):
         raise SystemExit(
-            f"need {max(device_counts)} devices, have {len(devices)} "
-            f"(set XLA_FLAGS=--xla_force_host_platform_device_count=N)"
-        )
+            f"need {max(device_counts)} devices, have {len(devices)}")
     rows = []
     base = None
     print(f"SW scaling: {num_alignments} x {length}bp, backend={backend}, "
-          f"platform={platform}")
-    if platform == "cpu":
-        print("NOTE: virtual CPU devices share the host's physical cores — "
-              "this validates the shard_map/all_gather path and measures its "
-              "overhead, not real chip scaling (run on a pod slice for that).")
+          f"platform={devices[0].platform} ({devices[0].device_kind})")
     print(f"{'devices':>8} {'ms':>10} {'pairs/s':>12} {'speedup':>8} {'efficiency':>10}")
     for n in device_counts:
         try:

@@ -53,8 +53,8 @@ class PairHMMConfig:
     """PairHMM forward parameters (pairHMMmatrix.c:9,32-55).
 
     ``log10_init`` is the log10 of the initial Y-row constant. The reference
-    uses DBL_MAX/16 (fp64); the TPU fp32 kernel uses 2**120 internally and
-    folds the difference into the final log-space result, so results agree
+    uses DBL_MAX/16 (fp64); the fp32 device paths use 2**120 internally and
+    fold the difference into the final log-space result, so results agree
     to fp32 tolerance regardless of this constant.
     """
 
@@ -65,12 +65,9 @@ class PairHMMConfig:
     # emission is plain Qr where GATK uses Qr/3 (README.md:2 admits the
     # divergence; pairHMMmatrix.c:32-34 vs GKL). Default False = exact
     # reference parity (the judged contract); True = the real
-    # HaplotypeCaller emission, applied consistently across the TPU
-    # kernels, the fp64 fallback/offload paths, and the oracle.
+    # HaplotypeCaller emission, applied consistently across the device
+    # paths, the fp64 fallback/offload paths, and the oracle.
     gatk_emission: bool = False
-    # (r4-r5 carried an opt-in scaled_recurrence flag here; it measured
-    # 5-14% slower on hardware and was deleted per the DESIGN §3b
-    # contract. Post-mortem: DESIGN.md §3b/§4.)
 
     @property
     def mm_div(self) -> float:
@@ -80,122 +77,60 @@ class PairHMMConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Per-chip executor knobs (the TPU analog of the reference's
-    block-size sweep, hiprun.sh:27-39). A tile is always 128 pairs — the
-    VPU lane width (kernels/wavefront.py LANES)."""
+    """Executor knobs. A tile is always 128 pairs (layout.LANES)."""
 
-    # Python-unrolled wavefront steps per fori_loop iteration (SW).
-    # Must divide STREAM_CHUNK (256) and stay <= pack MAX_UNROLL (32):
-    # one of 1, 2, 4, 8, 16, 32.
-    unroll: int = 32
-    # Backend: "pallas" (TPU / interpret), "lax" (pure-JAX wavefront).
+    # "cuda": the Hopper kernels (kernels/cuda.py), needs an NVIDIA GPU;
+    # "lax": the plain-JAX wavefront twins (kernels/wavefront.py), the
+    # reference path; "auto": cuda when JAX's default backend is a GPU.
     backend: str = "auto"
-    # Re-scale check period for the PairHMM fp32 exponent tracking (== the
-    # kernel's unrolled block length). Measured on v5e: 32 runs +6% over
-    # 16 at identical accuracy (10s.in max|err| 4.0e-5, same 24
-    # fallbacks) — the 2^40-trigger/2^80-factor headroom tolerates the
-    # deeper between-check decay, and anything beyond the fp32 envelope
-    # is caught by the fp64 fallback either way.
+    # Blocks of diagonals between the lax PairHMM twin's exponent rescale
+    # checks (phmm_forward_dense).
     rescale_period: int = 32
     # PairHMM results below this log10 threshold (or non-finite) are
-    # recomputed through the native fp64 golden model — the fp32 TPU fast
-    # path covers the overwhelmingly common case, exactly like GATK/GKL's
-    # fp32 AVX path with fp64 fallback. Measured on v5e: the fp32 path is
-    # <=1e-4-accurate above ~-50 log10 and degrades sharply below (up to
-    # ~9 log10 units by -200: the frozen-scale accumulator loses spread
-    # mass), so -45 is load-bearing, not conservative. Real variant-
-    # calling pairs sit far above it (10s.in: 24/3550 fallbacks); fully
-    # random read x hap pairs mostly fall below and run exact fp64.
-    # None disables the fallback.
+    # recomputed through the native fp64 golden model: the fp32 device
+    # path keeps <=1e-4 accuracy down to about -50 log10 and loses mass
+    # below (deep results underflow), exactly like GATK/GKL's fp32 path
+    # with fp64 fallback. Real variant-calling pairs sit far above it
+    # (10s.in: 24/3550 fallbacks). None disables the fallback.
     phmm_fallback_threshold: float | None = -45.0
-    # Oversized-job routing: pairs past this padded sublane extent
-    # leave the main lane-tile kernels — long SW pairs go to the
-    # strip-mined on-device kernel (sw_long), long PairHMM reads to
-    # the strip-mined long-read kernel (pairhmm_long: HBM halo FIFO +
-    # cross-strip exponent reconciliation), and only the
-    # chromosome-scale remainder (or device failures) to the native
-    # C++ exact model (the reference caps at MAX_LINE_LENGTH /
+    # Pairs whose padded sublane extent (len(x) + 2 for SW, twice the
+    # read for PairHMM) exceeds this, or whose diagonal count exceeds
+    # max_device_diags, are scored by the native C++ exact model instead
+    # of the device (the reference caps at MAX_LINE_LENGTH /
     # MAX_READ_LEN 1000, antidiagonalSmithWaterman.c:44 /
-    # pairHMMmatrix.c:8). PairHMM applies half these bounds (it
-    # carries ~2x the per-position state). These are routing choices,
-    # not capacity limits: v5e VMEM is 128 MiB (measured r2), and the
-    # PairHMM lane-tile kernel was verified compiling AND matching the
-    # fp64 model (<=3e-5) at read=1000 this round (an r1 failure at
-    # 640 no longer reproduces). The strip kernels win past these
-    # sizes by escaping the wavefront triangle waste, and real reads
-    # are <=251bp, so the bounds are left alone. The diagonal count is
-    # effectively unbounded: buckets whose stream buffer exceeds
-    # stream_vmem_rows route to the HBM-streamed kernels (slab-DMA
-    # double buffering), so max_device_diags only caps pathological
-    # memory use.
-    max_device_len: int = 1024
+    # pairHMMmatrix.c:8). The default admits x of up to 1,056 bytes, the
+    # CUDA SW kernel's reach, which covers the reference sweep's 1,024bp
+    # point plus its trailing '\n' byte.
+    max_device_len: int = 1058
     max_device_diags: int = 1 << 20
-    # Stream buffers larger than this many rows use the HBM-streamed
-    # kernel variant instead of a VMEM-resident stream.
-    stream_vmem_rows: int = 6144
-    # Route SW buckets with at least this many sublane rows through the
-    # strip-mined batched kernel (kernels/sw_strips.py), which sweeps
-    # only each strip's live diagonals. Measured on v5e (25k pairs/point,
-    # sustained): 512bp 135.9 vs 62.9 GCUPS resident, 1024bp 205.4 vs
-    # 58.4, 256bp 111.9 vs 64.5, 128bp 56.6 vs 45.6 — but 64bp loses
-    # (11.7 vs 20.2: too few vregs per step to hide the scalar-core
-    # window addressing), hence the floor. False disables.
-    sw_strips: bool = True
-    strips_min_nxs: int = 128
-    # Sublane-stacking for SHORT pairs (kernels/sw_stacked.py): buckets
-    # whose sublane window is at most stack_max_nxs rows re-stack
-    # sw_stack tiles deep, amortizing the measured ~100-cyc per-step
-    # overhead floor over sw_stack pairs (DESIGN.md §3b — the LEN=64
-    # regime where unroll/grid/strips levers all measured flat).
-    # 0/1 disables.
-    sw_stack: int = 0
-    stack_max_nxs: int = 96
-    # Column-stationary rotor for SHORT pairs (kernels/sw_rotor.py):
-    # buckets small enough that the whole pair fits a rotor period
-    # (T = round_up(max(nx, ny) + 1, 8) <= rotor_max_period) and that
-    # the strips router declined re-pack into per-lane pair queues
-    # where physical sublane p always computes matrix column p+1 — the
-    # anti-diagonal triangle waste (2.2x at 64bp) collapses to
-    # (T/len)^2 (~1.27x). Measured r5 on v5e by slope: 144 vs 99
-    # GCUPS at 64bp vs the resident kernel in the same session.
-    # Explicitly opting into sw_stack >= 2 bypasses the rotor (the
-    # stacked path is the kept-unrouted experiment; see DESIGN.md §4).
-    sw_rotor: bool = True
-    rotor_max_period: int = 136
-    rotor_max_slots: int = 32
-    # Cross-chip wavefront routing (ShardedEngine only): offloaded SW
-    # pairs whose x length is at least this many bases score through
-    # sw_forward_xsharded — ONE DP matrix split into per-device strips
-    # over the mesh (dist/xsharded.py), instead of the single-chip
-    # sw_long / native post-pass. None disables (the default: on one
-    # chip sw_long wins — xsharded exists for pairs too big for ONE
-    # chip's VMEM/HBM, where splitting the x axis is the point).
-    xshard_min_len: int | None = None
-    # Ship only the live band of the SW reversed-stream buffer (rows
-    # [A - max_len, A); everything else is zeros by construction) and
-    # reconstruct the full buffer on device — 2-3.5x less H2D on the
-    # dominant SW payload, bit-exact (pack.bucketing.StreamBand,
-    # pack.nibble.ship_stream). Device backends only; composes with
-    # nibble_transfer (band ships at 4 bits/row).
+    # Host->device transfer ladder (device backend only; the lax path
+    # keeps full host buffers), all bit-exact. stream_band_transfer ships
+    # only the live band of the SW reversed stream and rebuilds it on
+    # device (pack.bucketing.StreamBand, pack.nibble.ship_stream);
+    # factored_transfer ships each unique PairHMM read/haplotype once
+    # plus gather indices (PairHMMPacked docstring) and packs ~6x faster
+    # than the per-pair fill. nibble_transfer ships code tiles two rows
+    # per byte when the alphabet fits 14 symbols (pack/nibble.py); it is
+    # off by default because its host-side remap and packing cost far
+    # more than the PCIe time it saves (PERF.md, Findings).
     stream_band_transfer: bool = True
-    # Nibble-compress SW code tiles for the host->device transfer when
-    # the bucket's alphabet fits 14 symbols (pack/nibble.py: scores are
-    # invariant under an alphabet remap because the kernels test codes
-    # only for equality). Halves the dominant H2D payload; the device-
-    # side expansion is elementwise and reproduces the tiles bit-exactly.
-    nibble_transfer: bool = True
-    # Factor the PairHMM read×haplotype cross-product out of the
-    # host->device transfer (pack/bucketing.py PairHMMPacked docstring):
-    # ship each unique read/haplotype once plus per-slot gather indices,
-    # rebuild the job tiles on device. ~NH-fold H2D cut on top of
-    # byte_quals for HaplotypeCaller-shaped workloads (every read scores
-    # against every haplotype, pairHMMmatrix.c:207-258). Device backends
-    # only; the lax/dense path keeps full tiles.
+    nibble_transfer: bool = False
     factored_transfer: bool = True
 
     def resolve_backend(self) -> str:
-        if self.backend != "auto":
-            return self.backend
+        """"cuda" or "lax". Raises ValueError for an unknown name and
+        RuntimeError when "cuda" is asked for without a GPU."""
+        if self.backend not in ("auto", "cuda", "lax"):
+            raise ValueError(f"unknown backend {self.backend!r}: "
+                             "expected 'auto', 'cuda' or 'lax'")
+        if self.backend == "lax":
+            return "lax"
         import jax
 
-        return "pallas" if jax.default_backend() == "tpu" else "lax"
+        gpu = jax.default_backend() == "gpu"
+        if self.backend == "cuda" and not gpu:
+            raise RuntimeError(
+                "backend='cuda' runs the Hopper kernels and needs an NVIDIA "
+                f"GPU, but JAX's default backend is "
+                f"{jax.default_backend()!r}; use backend='lax' or 'auto'")
+        return "cuda" if gpu else "lax"

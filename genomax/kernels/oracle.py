@@ -1,7 +1,7 @@
 """Full-matrix numpy golden models (the differential-test oracle).
 
 These are deliberately simple, unvectorized-in-the-hot-axis implementations
-of the exact reference semantics, used to validate the TPU kernels on small
+of the exact reference semantics, used to validate the device kernels on small
 random inputs — the automated version of the reference's own
 matrix-vs-antidiagonal differential testing (README.md:2; SURVEY.md §4).
 

@@ -1,30 +1,28 @@
 """Shared tile-layout constants — the pack <-> kernel contract.
 
-These values bind the packers (genomax/pack/bucketing.py) to every
-kernel family (genomax/kernels/*): the packers size and quantize the
-tile and stream buffers with them, and the kernels' dynamic window
-loads and slab DMAs assume those bounds. They used to be defined
-independently in three modules; tuning one copy (e.g. trying a bigger
-DMA slab in one kernel) silently desynchronized pack and kernel and
-drove DMA source offsets negative. Import from here — never redefine.
+These values bind the packers (genomax/pack/bucketing.py) to the kernels
+(genomax/kernels/wavefront.py, genomax/kernels/csrc/gx_cells.h): the
+packers size and quantize the tile and stream buffers with them, and the
+kernels' window reads assume those bounds. Import from here — never
+redefine (gx_cells.h kLanes mirrors LANES).
 
 Layout recap (full proofs in kernels/wavefront.py):
 
-- x tiles are (NXs, LANES) sublane-major: sequence position on
-  sublanes, LANES independent pairs on lanes.
+- x tiles are (NXs, LANES): sequence position on axis 0 ("sublanes"),
+  LANES independent pairs on the last axis ("lanes").
 - stream buffers are (NDs, LANES) with the sequence REVERSED around
   the anchor A = NDs - NXs: sy[k] sits at row A - 1 - k, pads
   (PAD_STREAM) below row A - len. The kernels' per-diagonal window
   load is rows [A - d, A - d + NXs); the packers guarantee
   A >= ceil(n_diags/unroll)*unroll for any unroll <= MAX_UNROLL, and
-  quantize A to STREAM_CHUNK so the HBM-streamed kernels'
-  chunk-granular slab DMAs stay in bounds for the whole sweep.
+  quantize A to STREAM_CHUNK, which bounds the number of distinct stream
+  shapes (compilations).
 """
 
-LANES = 128  # pairs per tile (VPU lane width)
-SUB_Q = 8  # sublane padding quantum
+LANES = 128  # pairs per tile
+SUB_Q = 8  # padding quantum of the position axis
 MAX_UNROLL = 32  # largest unroll the packs reserve anchor slack for
-STREAM_CHUNK = 256  # diagonals per HBM->VMEM slab DMA (streamed kernels)
+STREAM_CHUNK = 256  # stream-anchor quantum
 
 # Pad codes. x pads decay the DP state exactly (PAD_X mismatches
 # everything, including PAD_STREAM); packers loudly reject bytes 0/1

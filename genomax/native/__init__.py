@@ -1,8 +1,10 @@
 """ctypes loader for the native golden library (genomax/native/golden.cpp).
 
-Builds the shared library on first use with g++ (cached next to the
-source); every entry point has a pure-python fallback so the package
-works without a toolchain.
+Builds the shared library from golden.cpp on first use with g++ (into
+_golden.so next to the source, listed in .gitignore; rebuilt when the
+source is newer); every entry point has a pure-python fallback so the
+package works without a toolchain. ``build()`` compiles it and raises
+when that fails.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import tempfile
 import threading
 
 import numpy as np
@@ -21,12 +24,21 @@ _lock = threading.Lock()
 _lib = None
 
 
-def _build() -> str:
-    subprocess.run(
-        ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-o", _LIB, _SRC],
-        check=True,
-        capture_output=True,
-    )
+def build() -> str:
+    # Compile into a temporary file and move it into place: concurrent
+    # first uses (test workers) never load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_DIR)
+    os.close(fd)
+    try:
+        subprocess.run(
+            ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
+            check=True,
+            capture_output=True,
+        )
+        os.replace(tmp, _LIB)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
     return _LIB
 
 
@@ -40,7 +52,7 @@ def load(rebuild: bool = False):
             if rebuild or not os.path.exists(_LIB) or os.path.getmtime(
                 _LIB
             ) < os.path.getmtime(_SRC):
-                _build()
+                build()
             lib = ctypes.CDLL(_LIB)
         except (OSError, subprocess.CalledProcessError):
             return None

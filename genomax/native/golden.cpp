@@ -229,7 +229,7 @@ void gx_pack_phmm_fill(const uint8_t* read_data, const int64_t* read_off,
 // the RAW phred+33 quality bytes (qb: (4, NXs, 128) int8 planes per
 // tile: base/ins/del/gcp) instead of six decoded fp32 tables — the
 // engine expands them on DEVICE through a 256-entry LUT
-// (pairhmm_pallas.expand_byte_quals), cutting host->device bytes ~5.6x
+// (pack/expand.py expand_byte_quals), cutting host->device bytes ~5.6x
 // per batch. No phred decode here at all: pure strided byte scatter.
 void gx_pack_phmm_fill_bytes(
     const uint8_t* read_data, const int64_t* read_off, const uint8_t* bq,

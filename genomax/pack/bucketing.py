@@ -128,7 +128,7 @@ def _level(x: int) -> int:
     at 64. Bounds the number of distinct compiled kernel shapes (~2 per
     octave) while capping per-dim padding waste at ~41% (typ. ~17%).
     The floor merges tiny-read buckets: their compute is negligible but
-    every extra bucket costs a ~10ms kernel launch and a Mosaic compile."""
+    every extra bucket costs a kernel launch and a compile."""
     x = max(x, 64)
     scale = 1
     while True:
@@ -142,7 +142,7 @@ def _quantize_tiles(n: int) -> int:
     """Pad a bucket's tile count to a quarter-octave level (1,2,3,4,5,6,
     8,10,12,16,20,24,32,...) so the number of distinct compiled batch
     shapes stays bounded (each distinct tile count is a separate
-    XLA/Mosaic compilation). Padding tiles sweep 1 diagonal."""
+    XLA compilation). Padding tiles sweep 1 diagonal."""
     t = max(1, (n + LANES - 1) // LANES)
     if t <= 8:
         return t
@@ -177,7 +177,7 @@ class StreamBand:
     @property
     def shape(self) -> tuple:
         # quacks like the full buffer for the shape-only routing reads
-        # (stream_vmem_rows gates, strips/stacked prep geometry)
+        # (launch shapes, tile padding)
         return (self.band.shape[0], self.nds, self.band.shape[2])
 
     @property
@@ -241,7 +241,7 @@ class PairHMMPacked:
     byte_quals packs carry qb (NT, 4, NXs, 128) int8 instead — the RAW
     phred+33 bytes in planes base/ins/del/gcp, pads byte 0 — and
     qr..qg are None: the engine expands qb on DEVICE
-    (pairhmm_pallas.expand_byte_quals), shipping ~5.6x fewer
+    (pack/expand.py expand_byte_quals), shipping ~5.6x fewer
     host->device bytes per batch.
 
     factored packs (byte_quals only) go further: the read×haplotype
@@ -251,7 +251,7 @@ class PairHMMPacked:
     qb_u (NRu+1, 4, NXs), hap_u (NHu+1, NDs; reversed stream rows) —
     plus per-slot gather indices ridx/hidx (NT, 128) int32 (the +1 row
     is all-pads for padded lanes). The engine rebuilds the job tiles on
-    DEVICE (pairhmm_pallas.expand_factored: take + transpose, HBM-rate)
+    DEVICE (pack/expand.py expand_factored: take + transpose)
     — another ~NH-fold H2D cut on top of byte_quals. rchar/qb/hap are
     None then."""
 

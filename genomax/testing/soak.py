@@ -6,21 +6,14 @@ its implementations run by hand (SURVEY.md §4; pairHMM/run.sh:2-8,
 README.md:2 "coherent with my C version"). genomax automates it as a
 seeded randomized campaign against the fp64 oracles:
 
-- ``run_soak``      — the compiled engine (all routing paths: resident /
-  strips / streamed kernels, oversized offloads, fp64 fallbacks, both
-  emission modes, 'N' alphabets, tandem and '\\n'-quirk adversaries)
-  vs ``kernels.oracle``.
-- ``run_deep_soak`` — the two deep paths a plain engine run never
-  exercises at depth: (a) ShardedEngine on a real mesh (compiled
-  Pallas inside shard_map) and (b) ``pairhmm_long`` strips with
-  adversarial rescale patterns (all-mismatch runs crossing every strip
-  seam, 'N' runs over seams, mixed exponent frames) vs the native fp64
-  golden model.
+- ``run_soak``      — the compiled engine (every launch shape, oversized
+  offloads, fp64 fallbacks, both emission modes, 'N' alphabets, tandem
+  and '\\n'-quirk adversaries) vs ``kernels.oracle``.
+- ``run_deep_soak`` — ShardedEngine on a device mesh (the kernels inside
+  shard_map) vs ``kernels.oracle``.
 
 CLI: ``genomax soak [--deep] [--rounds N] [--seed S]``. Any mismatch
-aborts loudly with the failing workload's parameters. On this host the
-recorded campaigns are 60 rounds (engine) + 16 rounds (deep) on real
-v5e hardware — see PERF.md §Parity for the measured envelopes.
+aborts loudly with the failing workload's parameters.
 """
 
 from __future__ import annotations
@@ -38,9 +31,8 @@ def _seq(rng, n, alphabet=_ABC4) -> bytes:
     return rng.choice(alphabet, max(int(n), 0)).tobytes()
 
 
-def run_soak(rounds: int = 60, seed: int = 20260817, backend: str = "pallas",
-             interpret: bool = False, max_len: int = 700,
-             log=print) -> int:
+def run_soak(rounds: int = 60, seed: int = 20260817, backend: str = "auto",
+             max_len: int = 700, log=print) -> int:
     """Engine-vs-oracle randomized soak. Returns 0 on PASS, 1 on the
     first mismatch (after logging the failing parameters)."""
     from genomax.config import EngineConfig, PairHMMConfig, SWConfig
@@ -59,10 +51,9 @@ def run_soak(rounds: int = 60, seed: int = 20260817, backend: str = "pallas",
                 gap_extend=-int(rng.integers(1, 4)))
             lo, hi = sorted(rng.integers(1, max_len, size=2) + [0, 2])
             if rd_i % 6 == 1:
-                # pin a steady share of rounds to the short regime so
-                # the rotor kernel (routed below ~128bp) soaks every
-                # campaign — a uniform [1, max_len) draw lands there
-                # only ~3% of the time
+                # pin a steady share of rounds to the short regime (the
+                # narrow launch shapes) — a uniform [1, max_len) draw
+                # lands there only ~3% of the time
                 lo, hi = sorted(rng.integers(1, 110, size=2) + [0, 2])
             alphabet = _ABCN if rd_i % 4 == 0 else _ABC4
             pairs = []
@@ -80,8 +71,7 @@ def run_soak(rounds: int = 60, seed: int = 20260817, backend: str = "pallas",
                 pairs.append(SWPair(sx=x, sy=x + _seq(rng, rng.integers(1, 300)) + x))
             if rng.random() < 0.2:  # oversized -> offload path
                 pairs.append(SWPair(sx=_seq(rng, 1200), sy=_seq(rng, 1400)))
-            e = Engine(EngineConfig(backend=backend), sw_cfg=cfg,
-                       interpret=interpret)
+            e = Engine(EngineConfig(backend=backend), sw_cfg=cfg)
             got = e.sw_scores(pairs)
             want = oracle.sw_scores_pairs(pairs, cfg)
             bad = np.nonzero(got != want)[0]
@@ -109,8 +99,7 @@ def run_soak(rounds: int = 60, seed: int = 20260817, backend: str = "pallas",
                 alphabet = _ABCN if rng.random() < 0.3 else _ABC4
                 haps.append(_seq(rng, rng.integers(1, hl_hi + 1), alphabet))
             batch = PairHMMBatch(reads=reads, haplotypes=haps)
-            e = Engine(EngineConfig(backend=backend), phmm_cfg=pcfg,
-                       interpret=interpret)
+            e = Engine(EngineConfig(backend=backend), phmm_cfg=pcfg)
             got = np.asarray(e.pairhmm([batch]), np.float64)
             want = oracle.pairhmm_batch_log10(batch, pcfg)
             finite = np.isfinite(want)
@@ -128,151 +117,53 @@ def run_soak(rounds: int = 60, seed: int = 20260817, backend: str = "pallas",
 
 
 def run_deep_soak(rounds: int = 16, seed: int = 3_2026,
-                  backend: str = "pallas", interpret: bool = False,
-                  devices: int = 1, long_rows: tuple[int, int] = (2048, 4096),
-                  long_cols: tuple[int, int] = (600, 2200),
+                  backend: str = "auto", devices: int = 1,
                   log=print) -> int:
-    """Deep-path soak: (a) ShardedEngine on a `devices`-chip mesh,
-    (b) pairhmm_long strips with adversarial cross-seam rescale
-    patterns. Returns 0 on PASS, 1 on the first mismatch."""
-    from genomax import native
+    """Deep-path soak: ShardedEngine on a `devices`-device mesh, SW and
+    PairHMM each round. Returns 0 on PASS, 1 on the first mismatch."""
     from genomax.config import EngineConfig
     from genomax.dist.engine import ShardedEngine
     from genomax.dist.mesh import make_mesh
     from genomax.io.formats import PairHMMBatch, PairHMMRead, SWPair
     from genomax.kernels import oracle
-    from genomax.kernels.pairhmm_long import pairhmm_long
 
     rng = np.random.default_rng(seed)
     mesh = make_mesh(devices)
-    if not interpret:
-        import jax
-
-        if jax.default_backend() != "tpu":
-            # Every other Pallas entry point platform-guards itself
-            # (ShardedEngine downgrades, the xshard path
-            # auto-interprets); pairhmm_long below would compile a
-            # Mosaic TPU kernel on CPU and die with an opaque backend
-            # error without this.
-            log("no TPU backend: running Pallas kernels in interpreter "
-                "mode")
-            interpret = True
     log(f"mesh devices: {mesh.devices}")
     t_start = time.time()
     for rd_i in range(rounds):
-        if rd_i % 2 == 0:  # (a) sharded engine on the mesh
-            lo, hi = sorted(rng.integers(1, 500, size=2) + [0, 2])
-            pairs = []
-            for _ in range(int(rng.integers(8, 30))):
-                a = _seq(rng, rng.integers(lo, hi + 1))
-                b = _seq(rng, rng.integers(lo, hi + 1))
-                if len(a) > len(b):
-                    a, b = b, a
-                pairs.append(SWPair(sx=a, sy=b))
-            dist = ShardedEngine(mesh, EngineConfig(backend=backend),
-                                 interpret=interpret)
-            got = dist.sw_scores(pairs)
-            want = oracle.sw_scores_pairs(pairs)
-            if not np.array_equal(got, want):
-                log(f"round {rd_i}: SHARDED SW MISMATCH {got} vs {want}")
-                return 1
-            nr, nh = int(rng.integers(1, 4)), int(rng.integers(1, 4))
-            reads = []
-            for _ in range(nr):
-                L = int(rng.integers(5, 200))
-                qs = bytes((33 + rng.integers(10, 45, size=L)).astype(np.uint8))
-                reads.append(PairHMMRead(bases=_seq(rng, L, _ABCN), base_q=qs,
-                                         ins_q=qs[::-1], del_q=qs, gcp_q=qs))
-            haps = [_seq(rng, rng.integers(5, 300), _ABCN) for _ in range(nh)]
-            batch = PairHMMBatch(reads=reads, haplotypes=haps)
-            gp = np.asarray(dist.pairhmm([batch]), np.float64)
-            wp = oracle.pairhmm_batch_log10(batch)
-            finite = np.isfinite(wp)
-            worst = np.abs(gp - wp)[finite].max() if finite.any() else 0.0
-            if worst > 2e-4:
-                log(f"round {rd_i}: SHARDED PHMM err={worst:.1e} FAIL")
-                return 1
-            stat = (f"SHARDED-{devices}dev sw n={len(pairs)} phmm {nr}x{nh} "
-                    f"err={worst:.1e} gcups={dist.last_stats.gcups:.1f}")
-        else:  # (b) pairhmm_long adversarial rescale patterns
-            L = int(rng.integers(long_rows[0], long_rows[1] + 1))
-            H = int(rng.integers(long_cols[0], long_cols[1] + 1))
-            # this branch runs on odd rounds only, so derive the adversary
-            # kind from the odd-round index — rd_i % 6 could only ever hit
-            # {1,3,5}, leaving some cases dead
-            kind = ((rd_i - 1) // 2) % 5
+        lo, hi = sorted(rng.integers(1, 500, size=2) + [0, 2])
+        pairs = []
+        for _ in range(int(rng.integers(8, 30))):
+            a = _seq(rng, rng.integers(lo, hi + 1))
+            b = _seq(rng, rng.integers(lo, hi + 1))
+            if len(a) > len(b):
+                a, b = b, a
+            pairs.append(SWPair(sx=a, sy=b))
+        dist = ShardedEngine(mesh, EngineConfig(backend=backend))
+        got = dist.sw_scores(pairs)
+        want = oracle.sw_scores_pairs(pairs)
+        if not np.array_equal(got, want):
+            log(f"round {rd_i}: SHARDED SW MISMATCH {got} vs {want}")
+            return 1
+        nr, nh = int(rng.integers(1, 4)), int(rng.integers(1, 4))
+        reads = []
+        for _ in range(nr):
+            L = int(rng.integers(5, 200))
             qs = bytes((33 + rng.integers(10, 45, size=L)).astype(np.uint8))
-            if kind == 0:  # all-mismatch across every strip seam
-                bases, hap = b"A" * L, b"C" * H
-            elif kind == 1:  # N-runs crossing seams
-                b_arr = rng.choice(_ABC4, L)
-                b_arr[L // 3: L // 3 + min(600, L // 2)] = ord("N")
-                h_arr = rng.choice(_ABC4, H)
-                h_arr[H // 2: H // 2 + min(200, H // 3)] = ord("N")
-                bases, hap = b_arr.tobytes(), h_arr.tobytes()
-            elif kind == 2:
-                # Near-match read crossing seams: every OTHER kind is
-                # mismatch-dominated and lands in the want<-45 skip
-                # branch below, so this is the one kind whose value
-                # stays inside the fp32 design range and arms the
-                # err<=2e-4 accuracy gate. Read = hap prefix with one
-                # cheap (phred-20) mismatch at every other strip seam
-                # row (STRIP_W=256, kernels/pairhmm_long.py).
-                h_arr = rng.choice(_ABC4, H)
-                # gap-free fit (read longer than hap forces insertions
-                # that would push the value below -45); at production
-                # long_cols (600-2200) this crosses 1-4 seams
-                L = max(min(L, H) - 8, 16)
-                b_arr = h_arr[:L].copy()
-                q_arr = np.full(L, 33 + 40, np.uint8)
-                for r in range(256, L, 512):
-                    b_arr[r] = ord("A") if b_arr[r] != ord("A") else ord("C")
-                    q_arr[r] = 33 + 20  # ~-2 log10 each: stays above -45
-                bases, hap = b_arr.tobytes(), h_arr.tobytes()
-                qs = q_arr.tobytes()
-            elif kind == 3:  # mismatch block then strong match (mixed frames)
-                half = rng.choice(_ABC4, L)
-                # copy: half[:H] would otherwise VIEW half, and the
-                # deep-decay mutation below would rewrite the hap too,
-                # degenerating the pattern to all-match
-                hap_a = (half[:H].copy() if H <= L
-                         else np.concatenate([half, rng.choice(_ABC4, H - L)]))
-                half[: L // 2] = ord("A")  # deep decay in early strips
-                bases, hap = half.tobytes(), hap_a.tobytes()
-            else:  # scattered-'N' random long pairs
-                bases, hap = _seq(rng, L, _ABCN), _seq(rng, H, _ABCN)
-            read = PairHMMRead(bases=bases, base_q=qs, ins_q=qs[::-1],
-                               del_q=qs, gcp_q=qs)
-            got = float(pairhmm_long([(read, hap)], 33.0,
-                                     interpret=interpret)[0])
-            want = float(native.pairhmm_native(
-                [PairHMMBatch(reads=[read], haplotypes=[hap])], 33.0)[0])
-            if not np.isfinite(want):
-                if np.isfinite(got):
-                    log(f"round {rd_i}: PHMM-LONG {L}x{H} kind={kind} "
-                        f"finite {got} vs non-finite oracle FAIL")
-                    return 1
-                stat = f"PHMM-LONG {L}x{H} kind={kind} both non-finite OK"
-            elif want < -45:
-                if kind == 2:
-                    # kind 2 is CONSTRUCTED to stay above -45 — landing
-                    # here means the accuracy gate is disarmed for the
-                    # whole campaign (a design regression, not a pass)
-                    log(f"round {rd_i}: PHMM-LONG kind=2 adversary "
-                        f"unexpectedly deep ({want:.1f} < -45): the "
-                        f"accuracy gate never runs — FAIL")
-                    return 1
-                # past the fp32 design range: the ENGINE routes this to the
-                # fp64 fallback; record but don't fail the fp32 path
-                stat = (f"PHMM-LONG {L}x{H} kind={kind} deep({want:.0f}) "
-                        f"got={got:.2f} (engine->fp64)")
-            else:
-                err = abs(got - want)
-                if err > 2e-4:
-                    log(f"round {rd_i}: PHMM-LONG {L}x{H} kind={kind} "
-                        f"err={err:.1e} ({got} vs {want}) FAIL")
-                    return 1
-                stat = f"PHMM-LONG {L}x{H} kind={kind} err={err:.1e}"
+            reads.append(PairHMMRead(bases=_seq(rng, L, _ABCN), base_q=qs,
+                                     ins_q=qs[::-1], del_q=qs, gcp_q=qs))
+        haps = [_seq(rng, rng.integers(5, 300), _ABCN) for _ in range(nh)]
+        batch = PairHMMBatch(reads=reads, haplotypes=haps)
+        gp = np.asarray(dist.pairhmm([batch]), np.float64)
+        wp = oracle.pairhmm_batch_log10(batch)
+        finite = np.isfinite(wp)
+        worst = np.abs(gp - wp)[finite].max() if finite.any() else 0.0
+        if worst > 2e-4:
+            log(f"round {rd_i}: SHARDED PHMM err={worst:.1e} FAIL")
+            return 1
+        stat = (f"SHARDED-{devices}dev sw n={len(pairs)} phmm {nr}x{nh} "
+                f"err={worst:.1e} gcups={dist.last_stats.gcups:.1f}")
         log(f"round {rd_i}: OK  {stat}  [{time.time() - t_start:.0f}s]")
     log("DEEP SOAK PASS")
     return 0
@@ -281,10 +172,9 @@ def run_deep_soak(rounds: int = 16, seed: int = 3_2026,
 def main(args) -> int:
     if args.deep:
         return run_deep_soak(rounds=args.rounds, seed=args.seed,
-                             backend=args.backend, interpret=args.interpret,
+                             backend=args.backend,
                              devices=args.devices or 1)
-    return run_soak(rounds=args.rounds, seed=args.seed, backend=args.backend,
-                    interpret=args.interpret)
+    return run_soak(rounds=args.rounds, seed=args.seed, backend=args.backend)
 
 
 if __name__ == "__main__":  # pragma: no cover - thin hand-run entry
@@ -295,6 +185,5 @@ if __name__ == "__main__":  # pragma: no cover - thin hand-run entry
     ap.add_argument("--seed", type=int, default=20260817)
     ap.add_argument("--deep", action="store_true")
     ap.add_argument("--devices", type=int, default=1)
-    ap.add_argument("--backend", default="pallas")
-    ap.add_argument("--interpret", action="store_true")
+    ap.add_argument("--backend", default="auto")
     sys.exit(main(ap.parse_args()))

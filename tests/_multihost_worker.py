@@ -18,6 +18,7 @@ os.environ["XLA_FLAGS"] = (
 ).strip()
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import numpy as np  # noqa: E402
 
@@ -60,14 +61,18 @@ def main():
     eng = ShardedEngine(mesh, EngineConfig(backend="lax"))
     sw = eng.sw_scores(pairs)
     ph = eng.pairhmm([batch])
-    # Factored pallas-interpret pass: multi-process is the only place
+    # Factored pass through the cuda dispatch, with the kernel replaced by
+    # its lax twin (tests/conftest.py): multi-process is the only place
     # _put_replicated's make_array_from_callback branch runs (the
     # unique-row tables must be replicated to every host's shards).
+    import conftest
+    from genomax.kernels import cuda
+
+    jax.default_backend = lambda: "gpu"
+    cuda.register = lambda: None
+    cuda.pairhmm_tiles = conftest._lax_pairhmm_tiles
     eng_f = ShardedEngine(
-        mesh,
-        EngineConfig(backend="pallas", factored_transfer=True),
-        interpret=True,
-    )
+        mesh, EngineConfig(backend="cuda", factored_transfer=True))
     ph_f = eng_f.pairhmm([batch])
     with open(os.environ["GX_OUT"] + f".{pid}", "w") as f:
         json.dump(

@@ -1,6 +1,6 @@
 """Factored PairHMM transfer (PairHMMPacked.rchar_u/qb_u/hap_u +
 ridx/hidx): the read×haplotype cross-product ships each unique read/hap
-once and the device gather (pairhmm_pallas.expand_factored) rebuilds the
+once and the device gather (pack/expand.py expand_factored) rebuilds the
 job tiles bit-exactly. Covers the expansion identity, engine/sharded
 score invariance, tile padding, and the non-ACGTN (bitmask off) path."""
 
@@ -26,7 +26,7 @@ def test_expand_factored_matches_unfactored_tiles():
     """Gather + transpose on the unique rows reproduces the byte-qual
     pack's job tiles (codes AND all six qual tables) bit-exactly —
     including the bitmask translation, which commutes with the gather."""
-    from genomax.kernels.pairhmm_pallas import (expand_byte_quals,
+    from genomax.pack.expand import (expand_byte_quals,
                                                expand_factored)
 
     for batch in (generate_pairhmm_batch(5, 3, read_len=21, hap_len=33,
@@ -64,24 +64,24 @@ def test_factored_dedup_actually_dedups():
 
 
 @pytest.mark.parametrize("batch_seed", [5, None])
-def test_engine_pairhmm_invariant_under_factored_transfer(batch_seed):
-    """pallas-interpret engine with factored_transfer on == off, exact,
+def test_engine_pairhmm_invariant_under_factored_transfer(batch_seed,
+                                                         cuda_twin):
+    """The cuda engine path (kernels replaced by their CPU twins) with
+    factored_transfer on == off, exact,
     for both the bitmask (ACGTN) and byte-equality (weird) alphabets."""
     batch = (_weird(6) if batch_seed is None else
              generate_pairhmm_batch(5, 3, read_len=23, hap_len=31,
                                     seed=batch_seed))
     on = Engine(
-        EngineConfig(backend="pallas", factored_transfer=True),
-        interpret=True,
+        EngineConfig(backend="cuda", factored_transfer=True),
     ).pairhmm([batch])
     off = Engine(
-        EngineConfig(backend="pallas", factored_transfer=False),
-        interpret=True,
+        EngineConfig(backend="cuda", factored_transfer=False),
     ).pairhmm([batch])
     np.testing.assert_array_equal(on, off)
 
 
-def test_sharded_engine_invariant_under_factored_transfer():
+def test_sharded_engine_invariant_under_factored_transfer(cuda_twin):
     """Mesh path: replicated unique tables + tile-sharded gather indices
     must score identically to the unfactored sharded dispatch, and the
     sharded stats must still count real cells."""
@@ -94,8 +94,7 @@ def test_sharded_engine_invariant_under_factored_transfer():
     for flag in (True, False):
         eng = ShardedEngine(
             mesh,
-            EngineConfig(backend="pallas", factored_transfer=flag),
-            interpret=True,
+            EngineConfig(backend="cuda", factored_transfer=flag),
         )
         res[flag] = eng.pairhmm([batch])
         assert eng.last_stats.dp_cells > 0
@@ -105,7 +104,7 @@ def test_sharded_engine_invariant_under_factored_transfer():
 def test_pad_tiles_to_factored_pads_stay_all_pad():
     """Tile padding on a factored pack must route pad lanes to the
     all-pad unique rows, keeping the mask-free pad-decay contract."""
-    from genomax.kernels.pairhmm_pallas import expand_factored
+    from genomax.pack.expand import expand_factored
     from genomax.pack.bucketing import PAD_STREAM, PAD_X
 
     batch = generate_pairhmm_batch(3, 2, read_len=13, hap_len=17, seed=12)

@@ -80,7 +80,7 @@ def test_two_process_sharded_engine(tmp_path):
     np.testing.assert_allclose(
         np.asarray(results[0]["ph"]), local.pairhmm([batch]), atol=1e-5
     )
-    # The factored pallas pass (replicated unique-row tables + sharded
+    # The factored cuda-path pass (replicated unique-row tables + sharded
     # gather indices, ShardedEngine._put_replicated) must agree too.
     np.testing.assert_allclose(
         np.asarray(results[0]["ph_factored"]), local.pairhmm([batch]),

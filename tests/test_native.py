@@ -117,7 +117,7 @@ def test_expand_byte_quals_matches_fp32_pack():
     cast to fp32), <=1-ulp for the fp32-summed mmv/gapm, exact 0.0 at
     every pad cell (the pad-decay invariant)."""
     from genomax.io.generator import generate_pairhmm_batch
-    from genomax.kernels.pairhmm_pallas import expand_byte_quals
+    from genomax.pack.expand import expand_byte_quals
     from genomax.pack import bucketing
 
     batch = generate_pairhmm_batch(9, 2, read_len=41, hap_len=60, seed=3)

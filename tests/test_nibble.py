@@ -49,9 +49,10 @@ def test_alphabet_too_wide_returns_none():
 
 
 @pytest.mark.parametrize("lengths", [(40, 64), (3, 200)])
-def test_engine_scores_invariant_under_nibble_transfer(lengths):
-    """pallas-interpret engine with nibble_transfer on == off, on a
-    workload that includes the trailing-'\\n' quirk bytes."""
+def test_engine_scores_invariant_under_nibble_transfer(lengths, cuda_twin):
+    """The cuda engine path (kernels replaced by their CPU twins) with
+    nibble_transfer on == off, on a workload that includes the
+    trailing-'\\n' quirk bytes."""
     from genomax.config import EngineConfig
     from genomax.engine.executor import Engine
     from genomax.io.formats import SWPair
@@ -67,10 +68,10 @@ def test_engine_scores_invariant_under_nibble_transfer(lengths):
             sx, sy = sx + b"\n", sy + b"\n"
         pairs.append(SWPair(sx=sx, sy=sy))
     on = Engine(
-        EngineConfig(backend="pallas", nibble_transfer=True), interpret=True
+        EngineConfig(backend="cuda", nibble_transfer=True)
     ).sw_scores(pairs)
     off = Engine(
-        EngineConfig(backend="pallas", nibble_transfer=False), interpret=True
+        EngineConfig(backend="cuda", nibble_transfer=False)
     ).sw_scores(pairs)
     np.testing.assert_array_equal(on, off)
 
@@ -85,7 +86,7 @@ def test_nibble_pack_4bit_guards_wide_values():
         nibble_pack_4bit(arr)
 
 
-def test_engine_pairhmm_invariant_under_nibble_transfer():
+def test_engine_pairhmm_invariant_under_nibble_transfer(cuda_twin):
     """Bitmask-coded PairHMM pack: rchar/hap nibble shipping must be
     bit-exact (identical log10s, not just close)."""
     from genomax.config import EngineConfig
@@ -94,15 +95,15 @@ def test_engine_pairhmm_invariant_under_nibble_transfer():
 
     batch = generate_pairhmm_batch(6, 3, read_len=23, hap_len=31, seed=5)
     on = Engine(
-        EngineConfig(backend="pallas", nibble_transfer=True), interpret=True
+        EngineConfig(backend="cuda", nibble_transfer=True)
     ).pairhmm([batch])
     off = Engine(
-        EngineConfig(backend="pallas", nibble_transfer=False), interpret=True
+        EngineConfig(backend="cuda", nibble_transfer=False)
     ).pairhmm([batch])
     np.testing.assert_array_equal(on, off)
 
 
-def test_sharded_engine_invariant_under_nibble_transfer():
+def test_sharded_engine_invariant_under_nibble_transfer(cuda_twin):
     """Mesh paths: nibble shipping + post-placement expansion inside the
     sharded dispatch (SW and PairHMM) must not change results."""
     from genomax.config import EngineConfig
@@ -122,15 +123,14 @@ def test_sharded_engine_invariant_under_nibble_transfer():
     for flag in (True, False):
         eng = ShardedEngine(
             mesh,
-            EngineConfig(backend="pallas", nibble_transfer=flag),
-            interpret=True,
+            EngineConfig(backend="cuda", nibble_transfer=flag),
         )
         res[flag] = (eng.sw_scores(pairs), eng.pairhmm([batch]))
     np.testing.assert_array_equal(res[True][0], res[False][0])
     np.testing.assert_array_equal(res[True][1], res[False][1])
 
 
-def test_engine_wide_alphabet_falls_back_uncompressed():
+def test_engine_wide_alphabet_falls_back_uncompressed(cuda_twin):
     """>14 distinct symbols: build_code_lut declines, the engine ships
     raw bytes, and scores still match the oracle."""
     from genomax.config import EngineConfig
@@ -148,7 +148,7 @@ def test_engine_wide_alphabet_falls_back_uncompressed():
         for _ in range(9)
     ]
     got = Engine(
-        EngineConfig(backend="pallas", nibble_transfer=True), interpret=True
+        EngineConfig(backend="cuda", nibble_transfer=True)
     ).sw_scores(pairs)
     np.testing.assert_array_equal(got, oracle.sw_scores_pairs(pairs))
 
@@ -192,9 +192,9 @@ def test_stream_band_pack_bit_identical():
             np.asarray(ship_stream(ship, bb.sy)), want)
 
 
-def test_engine_stream_band_end_to_end():
-    """The pallas-interpret engine with the (default-on) band transfer
-    must match the oracle — and actually route through StreamBand."""
+def test_engine_stream_band_end_to_end(cuda_twin):
+    """The cuda engine path with the (default-on) band transfer must
+    match the oracle — and actually route through StreamBand."""
     from genomax.config import EngineConfig
     from genomax.engine.executor import Engine
     from genomax.io.formats import SWPair
@@ -208,7 +208,7 @@ def test_engine_stream_band_end_to_end():
         if len(a) > len(b):
             a, b = b, a
         pairs.append(SWPair(sx=a, sy=b))
-    eng = Engine(EngineConfig(backend="pallas"), interpret=True)
+    eng = Engine(EngineConfig(backend="cuda"))
     assert eng._stream_band()
     got = eng.sw_scores(pairs)
     np.testing.assert_array_equal(got, oracle.sw_scores_pairs(pairs))

@@ -101,11 +101,11 @@ def test_pairhmm_deep_decay_rescale():
 
 
 def _tandem_pairs():
-    """Adversarial wrap-around workload (ADVICE r1, high): y contains a
-    second copy of x roughly NXs sublanes later, so the bottom row's
-    accumulated D/Q wrap into row 0 of the circular sublane roll exactly
-    when a fresh high-scoring region starts there. Without the
-    boundary-row pins these inflate (measured 193 vs 100 pre-fix)."""
+    """Adversarial wrap-around workload: y contains a second copy of x
+    roughly NXs rows later, so the bottom row's accumulated D/Q wrap into
+    row 0 of the circular roll exactly when a fresh high-scoring region
+    starts there. Without the boundary-row pins these inflate (193 vs 100
+    before the pins)."""
     rng = np.random.default_rng(42)
     abc = np.frombuffer(b"ATGC", np.uint8)
     out = []
@@ -123,14 +123,6 @@ def test_sw_tandem_repeat_wraparound(eng):
     pairs = _tandem_pairs()
     np.testing.assert_array_equal(
         eng.sw_scores(pairs), oracle.sw_scores_pairs(pairs)
-    )
-
-
-def test_sw_tandem_repeat_wraparound_pallas_interpret():
-    pairs = _tandem_pairs()
-    e = Engine(EngineConfig(backend="pallas"), interpret=True)
-    np.testing.assert_array_equal(
-        e.sw_scores(pairs), oracle.sw_scores_pairs(pairs)
     )
 
 
@@ -297,38 +289,3 @@ def test_sw_forward_dense_widens_int8_tiles():
     out = np.zeros(len(pairs), np.int32)
     out[b.perm] = got[: b.n_valid]
     np.testing.assert_array_equal(out, oracle.sw_scores_pairs(pairs))
-
-
-def test_strips_rejects_oversized_strip_w():
-    """An explicit strip_w past the bucket's NXs would make the stream-
-    window load read past the buffer and silently mis-score; it must
-    raise like the sibling unroll knob does."""
-    from genomax.io.formats import SWPair
-    from genomax.io.generator import random_dna
-    from genomax.kernels.sw_strips import prep_bucket_strips
-    from genomax.pack.bucketing import pack_sw_pairs
-
-    rng = np.random.default_rng(4)
-    pairs = [SWPair(sx=random_dna(rng, 500), sy=random_dna(rng, 500))
-             for _ in range(4)]
-    b = pack_sw_pairs(pairs)[0]
-    with pytest.raises(ValueError, match="strip_w"):
-        prep_bucket_strips(b, strip_w=b.sx.shape[1] + 8)
-    with pytest.raises(ValueError, match="strip_w"):
-        prep_bucket_strips(b, strip_w=0)
-
-
-def test_pack_pairhmm_long_rejects_bad_quals():
-    """pack_pairhmm_long must apply the same loud qual validation as
-    pack_pairhmm_batches (shared _reject_bad_read)."""
-    from genomax.io.formats import PairHMMRead
-    from genomax.kernels.pairhmm_long import pack_pairhmm_long
-
-    rd = PairHMMRead(bases=b"ACGT", base_q=b"I\x20II", ins_q=b"IIII",
-                     del_q=b"IIII", gcp_q=b"IIII")
-    with pytest.raises(ValueError, match="quality byte out of range"):
-        pack_pairhmm_long([(rd, b"ACGTA")])
-    rd2 = PairHMMRead(bases=b"ACGT", base_q=b"III", ins_q=b"IIII",
-                      del_q=b"IIII", gcp_q=b"IIII")
-    with pytest.raises(ValueError, match="quality strings"):
-        pack_pairhmm_long([(rd2, b"ACGTA")])
